@@ -20,7 +20,7 @@ from pathlib import Path
 from colbwt_tpu.utils.config import ColBwtConfig, SplitMode
 
 ASCII_ART = r"""
-        colbwt-tpu — pangenomic chain statistics on TPU
+        colbwt-tpu — pangenomic chain statistics on an accelerator
 """
 
 CLEAN_EXTS = ["bwt", "thr_pos", "col_mums", "bwt.heads", "bwt.len",
@@ -61,11 +61,9 @@ def _query(args: argparse.Namespace) -> int:
     if args.batch_size:
         cfg.batch_size = args.batch_size
     elif args.stream:
-        # bulk streaming defaults to deeper batches: a same-phase A/B on
-        # the n = 2.3e9 index measured 15,417 vs 8,387 reads/s for
-        # 32768-read vs 8192-read batches (logs/stream_ab_r4.log) —
-        # per-batch link latency amortizes; first-output latency is
-        # irrelevant for a bulk run
+        # bulk streaming defaults to deeper batches: per-batch dispatch and
+        # transfer latency amortize over more reads, and first-output
+        # latency does not matter for a bulk run
         cfg.batch_size = 32768
     if args.stream:
         if args.text:
@@ -86,7 +84,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="col-bwt",
         description="Full-text index for pangenomes using chain statistics "
-                    "(TPU-native)")
+                    "(JAX, accelerator-resident index)")
     sub = parser.add_subparsers(dest="command")
 
     b = sub.add_parser("build", help="Find multi-MUMs and build the col-bwt")
@@ -140,26 +138,16 @@ def main(argv: list[str] | None = None) -> int:
                    help="bounded-memory streaming mode for huge pattern "
                         "files (binary outputs only)")
     q.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device batch (0 = config default 8192); "
-                        "larger batches amortize per-batch link latency on "
-                        "slow host<->device transports")
+                   help="reads per device batch (0 = config default 8192, "
+                        "32768 with --stream); larger batches amortize "
+                        "per-batch dispatch and transfer latency")
     q.add_argument("--engine", type=str, default="auto",
                    choices=["auto", "pos", "mega", "fused", "xla"],
                    help="query engine override (auto picks the fastest "
-                        "that fits HBM)")
+                        "that fits device memory)")
 
     args = parser.parse_args(argv)
     if args.command in ("build", "query"):
-        import os
-
-        plat = os.environ.get("COLBWT_PLATFORM")
-        if plat:
-            # this must beat the first backend init: some hosts pin
-            # JAX_PLATFORMS at interpreter start (tests/conftest.py note),
-            # so the env var alone cannot redirect a CLI run to CPU
-            import jax
-
-            jax.config.update("jax_platforms", plat)
         from colbwt_tpu.utils.log import enable_compilation_cache
 
         enable_compilation_cache()

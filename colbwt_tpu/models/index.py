@@ -1,16 +1,17 @@
-"""ColPmlIndex — the queryable index as TPU-resident structure-of-arrays.
+"""ColPmlIndex — the queryable index as device-resident structure-of-arrays.
 
 The reference packs each run into an 18-byte bit-field row (col_thr: char 8b +
 idx 40b + interval 32b + offset 16b + col_id 8b + threshold 40b,
 include/col_bwt.hpp:81-115) and scans runs linearly for pred/succ lookups
-(include/ds/LF_table.hpp:271-298).  The TPU-first layout instead is:
+(include/ds/LF_table.hpp:271-298).  The device layout instead is:
 
 - one int32 array per field (SoA) so each query step is a handful of batched
-  (B,)-shaped gathers from HBM/VMEM instead of strided struct reads;
+  (B,)-shaped gathers from device memory instead of strided struct reads;
 - a dense remapped alphabet (DNA collections have ~6 symbols) so per-char
   structures are small;
 - precomputed per-char pred/succ jump tables replacing the linear scans with
-  O(1) gathers — same results, TPU-shaped (SURVEY §7 layer 4);
+  O(1) gathers — same results, shaped for batched gathers (SURVEY §7
+  layer 4);
 - thresholds/idx as int32 (requires n < 2**31; the reference budget allows
   n < 2**40 — int64 fallback is a planned extension, SURVEY §7 hard part 4).
 

@@ -2,7 +2,8 @@
 
 The reference walks each MUM's BWT range forward one FL step at a time,
 sequentially per MUM (col_split::split, include/col_split.hpp:54-136; the
-SURVEY §3.2 hot loop).  The TPU formulation advances *every* MUM in lockstep:
+SURVEY §3.2 hot loop).  The device formulation advances *every* MUM in
+lockstep:
 
 - **Tunneled mode** (the O(r + n/d) headline mode): a MUM's range survives
   only while its FL image stays contiguous, so its whole walk is a single

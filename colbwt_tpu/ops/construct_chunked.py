@@ -5,7 +5,7 @@ The monolithic lane (scripts/validate_wide.py) needs ~40 B/char of working
 set for SA-IS + Kasai — ~90 GB at n = 2.3e9 — capping single-host builds.
 This lane is the from-scratch equivalent of the reference's scale story
 (prefix-free parsing inside the mumemto fork,
-thirdparty/CMakeLists.txt:89-108), with a TPU-era decomposition instead of
+thirdparty/CMakeLists.txt:89-108), with this decomposition instead of
 PFP:
 
 1. split the collection into document chunks whose LOCAL suffix arrays fit

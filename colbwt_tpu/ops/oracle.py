@@ -454,8 +454,7 @@ def compute_thresholds_fast(heads: np.ndarray, lens: np.ndarray,
     exactly np.argmin's tie-break.  The packed keys are materialized ONE
     position block at a time (per-segment partial minima carried across
     blocks), so extra memory is O(block + r), not the 8n of a full packed
-    array: the round-4 n = 4.6e9 build spiked to 106 GB RSS in this stage
-    (logs/chunked_4g_r4.log), which extrapolates past host RAM at n ~ 9e9.
+    array, which at n ~ 9e9 alone would exceed host RAM.
     O(n·sigma) streaming host work; this is the wide-n (n >= 2**31) lane,
     where the device version's n-sized HBM arrays don't fit
     (ops.construct_jax notes)."""

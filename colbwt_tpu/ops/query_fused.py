@@ -1,8 +1,10 @@
 """Fused-gather query engine — the fast path.
 
-TPU gathers cost ~constant time per *index*, nearly independent of how many
-contiguous fields each index fetches (measured: a (B, 8) row gather costs the
-same as a (B,) scalar gather).  The baseline engine (ops.query_xla) spends
+The design premise is that a gather costs per *index*, nearly independent
+of how many contiguous fields each index fetches, so a (B, 8) row gather
+costs about what a (B,) scalar gather does (a hypothesis on the GPU, where
+a row within one 32 B sector should cost one memory transaction; not
+measured there yet).  The baseline engine (ops.query_xla) spends
 ~12 gather indices per read per character; this engine restructures the same
 recurrence (col_pml::_query_pml, include/col_bwt.hpp:498-574) to K+1 indices
 per step:

@@ -18,8 +18,9 @@ plus the lane's offset/pos — so it can all be precomputed into one
 
 Requires a k=2 run-split index (every LF image spans <= 2 runs), so the one
 fast-forward round closes the walk with the precomputed dlen0 — no dynamic
-control flow, no second gather.  TPU gather cost is per index (~16 ns), so
-this engine's step costs one index where the baseline costs ~12.
+control flow, no second gather.  If gather cost is per index (see
+ops.query_fused), this engine's step costs one index where the baseline
+costs ~12.
 
 Memory: 64 B per (char, run) — (sigma+1)*r*64 bytes.  For indexes where that
 does not fit HBM, use ops.query_fused (2+K-1 indices, 32 B/(char,run)) or
@@ -137,7 +138,7 @@ def query_chunk_mega(mt: dict, patterns: jnp.ndarray, lengths: jnp.ndarray,
     packed_out emits one (pml << 8 | cid) plane instead of two, downcast to
     uint16 only when fresh_state (mlen0 == 0 asserted by the caller) and
     M <= 255 bound pml below 256 — the slim device->host scheme of the
-    transfer-bound drivers (BASELINE.md).  patterns may be uint8."""
+    one-shot and streaming drivers.  patterns may be uint8."""
     B, M = patterns.shape
     r = mt["r"]
     n = mt["n"]

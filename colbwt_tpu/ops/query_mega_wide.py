@@ -2,8 +2,8 @@
 
 The reference's position budget is n < 2**40 (idx:40b, threshold:40b packed
 fields, include/ds/LF_table.hpp:36-39, include/col_bwt.hpp:84) — beyond int32
-but far under int64.  TPU int32 is the fast lane and x64 mode is global and
-costly, so position-valued quantities (pos, thresholds, LF rank positions)
+but far under int64.  JAX's x64 mode is process-global, so position-valued
+quantities (pos, thresholds, LF rank positions)
 travel as TWO int32 limbs in base 2**30:
 
     value = hi * 2**30 + lo,   lo in [0, 2**30)
@@ -14,15 +14,15 @@ conditional carry normalizes.  Ordering tests are (hi, lo) lexicographic.
 Run-valued quantities (interval, r) remain single int32, matching the
 reference's RUN_BYTES=4 budget (r < 2**32).
 
-Gather cost on TPU is per *index*, width-free (docs/DESIGN_NOTES.md), so the
-wide row — 16 int32 columns, 64 B, with the match flag folded into the CID
-column — still costs ONE gather per read per character; large-n querying
-runs at narrow-engine speed (23.5 ns/step measured, probe_wide_w16.py).
+The wide row — 16 int32 columns, 64 B, with the match flag folded into the
+CID column — still costs ONE gather per read per character, so if gather
+cost is per index (ops.query_fused) large-n querying runs at narrow-engine
+speed.  Whether two-limb arithmetic still pays on the GPU, where int64 is
+native, is not measured yet.
 
 TABLE BUILD IS ON DEVICE.  The table is (sigma+1)*r x 16 int32 — 5.8 GB at
-r = 15.2M — and materializing it on host then shipping it OOMed a 16 GB chip
-(the chunked upload concatenated on device: 2x peak) and would cost minutes
-on a slow transfer path.  Instead only the r-sized per-run arrays travel
+r = 15.2M — and materializing it on host then shipping it would need the
+host copy plus the transfer.  Instead only the r-sized per-run arrays travel
 (9 x 4 B/run), the per-char jump rows are recomputed on device (cummax /
 reverse-cummin over the char array), the succ/pred landing runs are resolved
 with the same statically-bounded LF fast-forward the engine uses (run
@@ -36,8 +36,8 @@ Two layouts:
 - compact: the 7 char-independent columns (char/cid/LF dest) live once in a
   (r, 8)-padded shared table and only the 10 threshold_step columns replicate
   per char ((sigma+1)*r, 10) — 34% smaller at sigma = 5, two gathers per
-  step.  Chosen automatically when the full table would not fit the HBM
-  budget (utils/hbm).
+  step.  Chosen automatically when the full table would not fit the device
+  memory budget (utils/hbm).
 
 Semantics are identical to ops.query_mega / the int64 NumPy oracle
 (col_pml::_query_pml, include/col_bwt.hpp:498-574), differential-tested on
@@ -58,10 +58,8 @@ NO_STATE = -1
 LIMB = 2**30
 
 # wide mega-row column layout (full table).  16 columns = 64 B rows: the
-# match flag rides bit 8 of the CID column (_MC = match << 8 | cid) —
-# probe_wide_w16.py measured 23.5 ns/step for the 64 B row vs 31.2 ns for
-# the earlier 17-column 68 B row (boundary-straddling gathers), a 1.33x
-# query-throughput win at identical information content.
+# match flag rides bit 8 of the CID column (_MC = match << 8 | cid), so a
+# row is two aligned 32 B sectors instead of a boundary-straddling 68 B.
 _MC, _DI0, _DOFF0, _LF_LO, _LF_HI, _DLEN0 = range(6)
 _THR_LO, _THR_HI = 6, 7
 _S_INT, _S_OFF, _S_LO, _S_HI = 8, 9, 10, 11
@@ -383,8 +381,8 @@ def query_chunk_mega_wide(mt: dict, patterns: jnp.ndarray,
     packed_out returns ((pml << 8 | cid, None), final) — one output plane
     instead of two; it downcasts to uint16 only when fresh_state (caller
     asserts mlen0 == 0) and M <= 255 make pml < 256 provable, an 8x
-    device->host byte saving for the transfer-bound one-shot/streaming
-    drivers (BASELINE.md).  patterns may be uint8 (slim uploads)."""
+    device->host byte saving for the one-shot/streaming drivers.
+    patterns may be uint8 (slim uploads)."""
     B, M = patterns.shape
     r = mt["r"]
     compact = "shared" in mt

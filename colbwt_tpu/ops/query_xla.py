@@ -65,7 +65,7 @@ def lf_fast_forward(length: jnp.ndarray, di: jnp.ndarray, doff: jnp.ndarray
     """Batched dynamic run fast-forward (include/ds/LF_table.hpp:256-259):
     while_loop until every lane lands — correct for any (unsplit) table.
     Split tables use the statically unrolled path in query_step instead
-    (no dynamic control flow; 30-300x faster compile, measured)."""
+    (no dynamic control flow, so it compiles much faster)."""
 
     def cond(state):
         di, doff = state

@@ -4,7 +4,7 @@ tables.
 The reference compiles (but never drives) an r-index lifted from
 maxrossi91/r-index: a run-length BWT with rank/select support, LF by rank,
 FL by select, and an F-column array (include/ds/r_index.hpp:34-216).  For
-capability parity this module rebuilds that representation TPU-shaped:
+capability parity this module rebuilds that representation for batches:
 per-char sorted run arrays + prefix sums, so rank and select are batched
 searchsorted calls instead of wavelet-tree walks — O(log r_c) per query,
 vectorizable over whole batches.

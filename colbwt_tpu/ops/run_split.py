@@ -43,9 +43,8 @@ def split_runs_bounded_ff(tbl: LFTableArrays, k: int = 4, max_rounds: int = 512,
     new boundaries, only runs whose LF images contain those boundaries (at
     most one per char per boundary, found by per-char image search) plus the
     pieces of the cut runs can newly violate — each tail round costs
-    O(affected * log r) instead of the old O(r log r) full recompute
-    (the docs/ROUND_NOTES.md item-5a straggler: ~20 tail rounds fixing <5k
-    runs each at r=5.6M).
+    O(affected * log r) instead of an O(r log r) full recompute (a split
+    can take ~20 tail rounds that each fix only a few thousand runs).
 
     Runs whose LF image overlaps *themselves* (long self-mapping repeats) can
     oscillate — each cut inserts a boundary into the run's own image — so

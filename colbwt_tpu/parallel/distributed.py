@@ -2,7 +2,7 @@
 
 Topology: ``jax.distributed`` + a global dp×ip mesh over all devices.  The
 index is replicated per host when it fits HBM, or interval-sharded over "ip"
-(parallel.query_sharded).  Read batches shard by host over DCN: each process
+(parallel.query_sharded).  Read batches shard by host: each process
 owns the contiguous slice [pid * ceil(R / P), ...) of the input FASTA's reads,
 writes its own part files, and process 0 concatenates them in read order —
 deterministic output regardless of process count.
@@ -11,7 +11,7 @@ Runs unchanged single-process (P = 1), which is how CI exercises it; the
 driver's dryrun covers the multi-device mesh path.
 
 ASSUMPTION: the part-file merge requires a filesystem visible to every
-process (the standard shared-scratch setup on TPU pods).  Without one,
+process (a shared scratch filesystem across the hosts).  Without one,
 point each host's pattern_file at local scratch and concatenate the part
 files out of band — the record format is self-delimiting, so plain
 byte concatenation in process order is the merge.

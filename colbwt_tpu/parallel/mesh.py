@@ -1,15 +1,15 @@
 """Device-mesh construction and sharding layouts.
 
 The reference is single-node and effectively single-threaded (SURVEY §2.3);
-this layer is new TPU-native design (SURVEY §5.8):
+this layer is new design (SURVEY §5.8):
 
 - axis "dp" — data parallel over reads: the batch dimension of every
   per-read state/output array is sharded; reads never communicate.
 - axis "ip" — index parallel over runs: the structure-of-arrays move table is
   sharded into contiguous run blocks; each query-step gather is answered by
   the owning shard and combined with one psum over "ip" (collective row
-  assembly riding ICI).  Replicate instead (ip=1) whenever the index fits a
-  chip's HBM — gathers are then local and free of collectives.
+  assembly).  Replicate instead (ip=1) whenever the index fits one
+  device's memory — gathers are then local and free of collectives.
 
 Multi-host: build the mesh over jax.devices() after jax.distributed
 initialization; read batches stream per-host (dp outer = process axis) and

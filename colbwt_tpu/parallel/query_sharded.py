@@ -5,10 +5,10 @@ in contiguous run blocks; every table access becomes
 
     local = global_row - block_start
     contribution = owner_mask * local_gather
-    row = psum(contribution, "ip")          # collective row assembly over ICI
+    row = psum(contribution, "ip")          # collective row assembly
 
 The recurrence itself is ops.query_xla.query_step with these gathers injected,
-so sharded and single-chip engines cannot drift semantically.  With ip == 1
+so sharded and single-device engines cannot drift semantically.  With ip == 1
 the masks are all-true and XLA elides the psums — the dp-only path costs no
 collectives.
 """

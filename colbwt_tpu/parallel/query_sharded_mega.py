@@ -3,7 +3,7 @@
 The mega table ((sigma+1)*r × 16, ops.query_mega) shards in contiguous row
 blocks over "ip"; each step every shard answers the batch's row fetch from its
 block (masked gather) and one psum over "ip" assembles the (B, 16) rows.
-Per-step ICI traffic: B × 64 bytes — an order of magnitude less than the
+Per-step collective traffic: B × 64 bytes — an order of magnitude less than the
 per-field sharded baseline (parallel.query_sharded), because the mega layout
 already collapsed the recurrence to one row fetch per step.
 

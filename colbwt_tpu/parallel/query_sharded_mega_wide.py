@@ -2,12 +2,12 @@
 positions — the n >= 2**31 counterpart of parallel.query_sharded_mega.
 
 Why it exists: a wide index's full mega table is 64 B × (sigma+1) × r —
-5.8 GB at r = 15.2M and growing linearly in r — so past ~35M runs even the
-compact layout outgrows one v5e chip.  Sharding the table rows contiguously
-over "ip" bounds the per-chip slice at table/ip while reads stay sharded
+5.8 GB at r = 15.2M and growing linearly in r — so a large enough r
+outgrows one device's memory.  Sharding the table rows contiguously
+over "ip" bounds the per-device slice at table/ip while reads stay sharded
 over "dp"; each step every shard answers the batch's row fetch from its
 block with a masked local gather and ONE psum over "ip" assembles the
-(B, 16) int32 rows (B × 64 bytes of ICI per step).
+(B, 16) int32 rows (B × 64 bytes of collective traffic per step).
 
 The recurrence body is identical to ops.query_mega_wide.query_chunk_mega_wide
 (full layout): positions travel as two int32 limbs in base 2**30, ordering
@@ -44,8 +44,8 @@ def shard_mega_wide(index: ColPmlIndex, mesh: Mesh,
 
     By default each device's slice is assembled on demand from the r-sized
     per-run arrays (QW.wide_rows_host_slice) — host peak is O(table/ip),
-    never the full O((sigma+1)*r*16) table (5.8 GB at r = 15.2M), which at
-    pod scale was the single-chip OOM pattern moved one layer out.  Passing
+    never the full O((sigma+1)*r*16) table (5.8 GB at r = 15.2M), which
+    would move the one-device memory limit to the host.  Passing
     mega_host places a prebuilt table instead (differential tests)."""
     ip = mesh.shape["ip"]
     rows = (index.sigma + 1) * index.r

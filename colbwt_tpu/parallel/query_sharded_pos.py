@@ -2,11 +2,11 @@
 k characters.
 
 The pos tables (ops.query_pos) are the fastest engine but cost
-(sigma+1)**k · n · 8 bytes — beyond one chip's HBM for larger collections
+(sigma+1)**k · n · 8 bytes — beyond one device's memory for larger collections
 (e.g. k=2 at n = 40 Mbp is ~11.5 GB).  Here the (A^k, n, 2) table shards in
 contiguous POSITION blocks over "ip": each shard answers the batch's row
 fetch from its block (masked gather) and one psum over "ip" assembles the
-(B, 2) rows.  Per-step ICI traffic is B × 8 bytes per k characters — 8k×
+(B, 2) rows.  Per-step collective traffic is B × 8 bytes per k characters — 8k×
 less than the sharded mega engine's B × 64 per character.
 
 Sharding also relaxes the int32 gather-index constraint: each shard indexes

@@ -1,6 +1,6 @@
 """Sharded-engine routing: pick the right distributed engine for an index.
 
-Mirrors the single-chip ladder in pipeline.engines (pos > mega > per-field),
+Mirrors the single-device ladder in pipeline.engines (pos > mega > per-field),
 extended with the wide lane: a wide index (n >= 2**31) routes to the
 interval-sharded two-limb engine instead of being rejected.  Per-shard HBM
 budgets come from utils.hbm unless given.

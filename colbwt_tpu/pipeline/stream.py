@@ -2,7 +2,7 @@
 
 `query_pipeline` materializes every read and every output in host lists —
 fine for millions of reads, not for the HPRC config's "100M reads streamed"
-workload (BASELINE config #5).  `query_stream` keeps host memory flat:
+workload (config #5 in BASELINE.json).  `query_stream` keeps host memory flat:
 
 - reads arrive through io.fasta.stream_fasta (one ~32 MB slab at a time),
 - batches dispatch in strict input order, two deep, so the device computes

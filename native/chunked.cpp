@@ -366,6 +366,7 @@ void lcp_from_rlbwt(const uint8_t* heads, const int64_t* lens, int64_t r,
         int nthreads = parallel_level ? omp_get_max_threads() : 1;
 #else
         int nthreads = 1;
+        (void)parallel_level;
 #endif
         vector<vector<IV>> locals(nthreads);
         // within one level intervals are pairwise disjoint, so child

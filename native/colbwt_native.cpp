@@ -4,10 +4,10 @@
 // (col_pml::_query_pml at include/col_bwt.hpp:498-529 of drnatebrown/col-bwt:
 // per-base backward scan, threshold repositioning with linear pred/succ run
 // scans per include/ds/LF_table.hpp:271-298, LF fast-forward walk per
-// :251-262) against the same structure-of-arrays table the TPU engines use.
-// It is the single-core C++ baseline that bench.py measures TPU speedup
-// against — intentionally the reference's algorithmic shape (linear scans,
-// no jump tables), not ours.
+// :251-262) against the same structure-of-arrays table the device engines
+// use.  It is the single-core C++ baseline that bench.py measures the device
+// against and the exactness reference of chip_smoke.py — intentionally the
+// reference's algorithmic shape (linear scans, no jump tables), not ours.
 //
 // Build: make -C native   (produces libcolbwt_native.so, loaded via ctypes)
 

@@ -10,8 +10,8 @@
 // The core is templated on the index/text integer type: SA-IS is memory-
 // bound (the induce passes are data-dependent scattered stores over the
 // whole SA), so running chunks that fit int32 in 4-byte arrays instead of
-// 8-byte ones halves the random-access working set — measured ~1.9x on
-// gigabase chunks (BASELINE.md round 5).  Chunked construction always
+// 8-byte ones halves the random-access working set (a host-side
+// measurement gave ~1.9x on gigabase chunks).  Chunked construction always
 // fits: chunk_chars <= ~600M << 2^31.
 //
 // Differential-tested against the NumPy prefix-doubling oracle and the

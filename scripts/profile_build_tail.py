@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Per-phase profile of the chunked build tail (the host-bound ~83% of
-build wall at n = 4.6e9 — VERDICT round-4 item 1).
+"""Per-phase profile of the chunked build tail (the host-bound part of a
+chunked build).
 
 Times each sub-phase separately on a synthetic SNP collection:
   per chunk: rank text prep, SA-IS, bwt/doc extraction, merge_ranks,

@@ -2,10 +2,6 @@
 """BASELINE config #2 validation: E. coli-class collection (8 docs x 5 Mbp
 = 40 Mbp) end-to-end through the REAL pipeline (build_pipeline on FASTA
 files), then device queries with single-core C++ exactness checks.
-
-Round-1 recorded 605 s end-to-end for this shape; the round-2 worklist
-run-splitter claimed the 135-143 s split stage down to ~6 s but was never
-re-banked by a full run (VERDICT r2 item 6).  This script is the record.
 """
 
 from __future__ import annotations
@@ -35,7 +31,7 @@ def main():
     ap.add_argument("--check", type=int, default=512)
     ap.add_argument("--min-mum", type=int, default=40)
     ap.add_argument("--run-split", choices=("auto", "always"), default="auto")
-    ap.add_argument("--workdir", type=str, default="/tmp/cfg2_v")
+    ap.add_argument("--workdir", type=str, default=str(REPO / ".bench_cache" / "cfg2"))
     ap.add_argument("--query-only", action="store_true",
                     help="reuse the workdir's built index (same rng draw "
                     "sequence regenerates identical docs/reads) — for a "
@@ -49,7 +45,7 @@ def main():
     from colbwt_tpu.utils.config import ColBwtConfig
     from colbwt_tpu.utils.log import enable_compilation_cache
 
-    enable_compilation_cache(str(REPO / ".bench_cache" / "jax_cache"))
+    enable_compilation_cache()
     assert native.available()
     wd = Path(args.workdir)
     if args.query_only:

@@ -52,7 +52,7 @@ def main():
                                             find_col_runs_uniform)
     from colbwt_tpu.utils.log import enable_compilation_cache
 
-    enable_compilation_cache(str(REPO / ".bench_cache" / "jax_cache"))
+    enable_compilation_cache()
     assert native.available(), "native helpers required at this scale"
 
     rng = np.random.default_rng(0xC0F3)
@@ -134,7 +134,7 @@ def main():
     if k >= 1:
         t = time.perf_counter()
         pt = query_pos.build_pos_tables(index, k, alphabet=alpha)
-        _ = int(np.asarray(pt["table"][:2, 0]).sum())
+        pt["table"].block_until_ready()
         log(f"pos tables: {time.perf_counter() - t:.1f}s "
             f"({pt['table'].nbytes / 1e9:.1f} GB)")
         M = -(-150 // k) * k
@@ -144,13 +144,13 @@ def main():
         lj = jnp.asarray(lens_)
         p, c = query_pos.query_batch_pos(pt["table"], pt["n"], ej, lj,
                                          k=k, A=pt["A"])
-        _ = int(np.asarray(p[:, -1]).sum())
+        p.block_until_ready()
         best = 1e18
         for _ in range(3):
             t = time.perf_counter()
             p, c = query_pos.query_batch_pos(pt["table"], pt["n"], ej, lj,
                                              k=k, A=pt["A"])
-            _ = int(np.asarray(p[:, -1]).sum())
+            p.block_until_ready()
             best = min(best, time.perf_counter() - t)
         log(f"query: {best:.3f}s -> {len(reads) / best:,.0f} reads/s")
         p = np.asarray(p)

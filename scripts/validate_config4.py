@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """BASELINE config #4 validation: 8 human-chr21-scale haplotypes (~370 Mbp
-concatenated), single-host HBM-resident index.
+concatenated), single-host device-resident index.
 
-At this n the positional/mega tables exceed one chip's HBM, so the compact
-SoA engine (query_xla, ~2-3 GB) serves single-chip queries — the sharded
-mega/pos engines are the designed multi-chip answer (parallel/).  Checks
-exact PML+CID equality vs the single-core C++ engine on a read subset.
+Builds the index, queries it through the positional-automaton engine
+(QueryEngines, with the persisted table cache) and checks exact PML+CID
+equality vs the single-core C++ engine on a read subset.
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ def main():
                                             find_col_runs_uniform)
     from colbwt_tpu.utils.log import enable_compilation_cache
 
-    enable_compilation_cache(str(REPO / ".bench_cache" / "jax_cache"))
+    enable_compilation_cache()
     assert native.available(), "native helpers required at this scale"
 
     rng = np.random.default_rng(0xC4)
@@ -63,7 +62,8 @@ def main():
     n = text.size
     log(f"n = {n:,} over {args.docs} docs")
 
-    cache = Path("/tmp/cfg4_sa_cache.npz")
+    cache = REPO / ".bench_cache" / "cfg4_sa_cache.npz"
+    cache.parent.mkdir(parents=True, exist_ok=True)
     if cache.exists():
         z = np.load(cache)
         sa, lcp = z["sa"], z["lcp"]
@@ -118,21 +118,23 @@ def main():
     from colbwt_tpu.ops import query_pos
     from colbwt_tpu.utils.xfer import device_put_chunked
 
-    k = query_pos.choose_k(index, 13 << 30, alphabet=b"ACGT")
+    from colbwt_tpu.utils.hbm import resolve_pos_budget
+
+    k = query_pos.choose_k(index, resolve_pos_budget(0), alphabet=b"ACGT")
     if k >= 1:
         # build through QueryEngines so the persisted-table-cache policy
         # (pipeline/tables.py bandwidth-vs-build decision) runs and is
-        # recorded at this 11.8 GB table size
+        # recorded at this table size
         from colbwt_tpu.pipeline.engines import QueryEngines
         from colbwt_tpu.utils.config import ColBwtConfig
 
-        cfg = ColBwtConfig(engine="pos", pos_hbm_budget=13 << 30)
+        cfg = ColBwtConfig(engine="pos")
         t = time.perf_counter()
         eng = QueryEngines(index, cfg, total_chars=len(reads) * 150,
-                           table_dir="/tmp/cfg4_tables")
+                           table_dir=str(REPO / ".bench_cache" / "cfg4_tables"))
         assert eng.use_pos and eng.pos_k == k, (eng.name, k)
         pt = eng.pt
-        _ = int(np.asarray(pt["table"][:2, 0]).sum())
+        pt["table"].block_until_ready()
         log(f"pos tables k={k} (ACGT keys): {time.perf_counter() - t:.1f}s "
             f"({pt['table'].nbytes / 1e9:.1f} GB)")
         for ev in eng.cache_events:
@@ -156,13 +158,13 @@ def main():
         engine = "xla compact"
     t = time.perf_counter()
     p, c = run()
-    _ = int(np.asarray(p[:, -1]).sum())
+    p.block_until_ready()
     log(f"{engine} first call: {time.perf_counter() - t:.1f}s")
     best = 1e18
     for _ in range(2):
         t = time.perf_counter()
         p, c = run()
-        _ = int(np.asarray(p[:, -1]).sum())
+        p.block_until_ready()
         best = min(best, time.perf_counter() - t)
     log(f"query: {best:.3f}s -> {len(reads) / best:,.0f} reads/s ({engine})")
     p = np.asarray(p)

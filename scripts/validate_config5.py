@@ -11,9 +11,9 @@
 
 This composes what rounds 1-3 validated only in isolation, the way the
 reference's shipped pipeline composes by construction
-(/root/reference/scripts/col-bwt.py:94-198).  Build and query run as
-separate CLI subprocesses (fresh device state each — the round-3
-RESOURCE_EXHAUSTED insurance), both RSS-sampled.
+(the reference's scripts/col-bwt.py:94-198).  Build and query run as
+separate CLI subprocesses, each with fresh device state and RSS-sampled;
+this process holds no device while they run (one process per card).
 """
 
 from __future__ import annotations
@@ -57,6 +57,9 @@ def sample_rss(pid: int, stop: threading.Event, out: dict, tag: str):
 
 
 def run_sampled(cmd: list[str], tag: str, rss: dict, env=None) -> float:
+    from colbwt_tpu.utils.hbm import require_no_device_held
+
+    require_no_device_held(f"CLI child ({tag})")
     log(f"exec ({tag}): {' '.join(cmd)}")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env)
@@ -106,7 +109,7 @@ def main():
     ap.add_argument("--check", type=int, default=128)
     ap.add_argument("--min-mum", type=int, default=100)
     ap.add_argument("--chunk-chars", type=int, default=600_000_000)
-    ap.add_argument("--workdir", type=str, default="/tmp/cfg5_v")
+    ap.add_argument("--workdir", type=str, default=str(REPO / ".bench_cache" / "cfg5"))
     args = ap.parse_args()
 
     from colbwt_tpu.io import FastaRecord, native, write_fasta

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Streaming-query validation: 10M+ reads with flat host RSS
-(VERDICT round-1 item 3; BASELINE config #5's "100M reads streamed" lane).
+(the "100M reads streamed" lane of config #5 in BASELINE.json).
 
 Builds a mid-size index, writes a multi-GB synthetic FASTA, then runs
 pipeline.stream.query_stream while sampling the process RSS.  Records
@@ -59,7 +59,7 @@ def main():
     ap.add_argument("--docs", type=int, default=4)
     ap.add_argument("--doc-len", type=int, default=1_000_000)
     ap.add_argument("--check", type=int, default=128)
-    ap.add_argument("--workdir", type=str, default="/tmp/stream_v")
+    ap.add_argument("--workdir", type=str, default=str(REPO / ".bench_cache" / "stream"))
     ap.add_argument("--quiesce-pid", type=int, default=0,
                     help="SIGSTOP this PID during the measured stream "
                     "window (and SIGCONT it after) so a co-running batch "
@@ -76,7 +76,7 @@ def main():
     from colbwt_tpu.utils.config import ColBwtConfig
     from colbwt_tpu.utils.log import enable_compilation_cache
 
-    enable_compilation_cache(str(REPO / ".bench_cache" / "jax_cache"))
+    enable_compilation_cache()
     wd = Path(args.workdir)
     wd.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0x57BE)

@@ -1,4 +1,4 @@
-"""Randomized differential fuzz of the query boundary (VERDICT r4 item 8).
+"""Randomized differential fuzz of the query boundary.
 
 Thousands of generated (index, read set) pairs — mixed alphabets, dense
 and sparse run structures, non-index bytes, empty/1-char/huge reads,

@@ -2,7 +2,7 @@
 reproduce them byte-for-byte, and the oracle and native C++ engine must
 agree on them independently.  These pin the query semantics so any drift
 (threshold tie-breaks, CID sampling point, id binning) is caught against
-committed bytes, not parity-with-self (VERDICT round 1, missing item 2)."""
+committed bytes, not parity-with-self."""
 
 from pathlib import Path
 

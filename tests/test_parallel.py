@@ -210,8 +210,7 @@ def test_host_lean_wide_slices_cross_char_blocks():
     """The host-lean per-slice assembly (shard_mega_wide's default path,
     O(table/ip) host peak) must equal the prebuilt full table even when
     every device's slice spans multiple char blocks of the (sigma+1)*r
-    row space — the placement real pangenome-scale tables hit (VERDICT r4
-    weak #6: prior tests only sharded toy-r indexes)."""
+    row space — the placement real pangenome-scale tables hit."""
     from colbwt_tpu.ops import query_mega_wide as QW
     from colbwt_tpu.parallel.query_sharded_mega_wide import (
         query_batch_sharded_mega_wide, shard_mega_wide)

@@ -161,32 +161,38 @@ def test_clean_removes_col_pml(tmp_path, rng):
 
 
 def test_resolve_pos_budget():
-    """Budget auto-derivation: explicit value wins; CPU hosts fall back to
-    the 10 GB constant; known TPU kinds map to a fraction of their HBM."""
-    from colbwt_tpu.utils.hbm import (_FALLBACK, _RESERVE_FRACTION,
-                                      device_hbm_bytes, resolve_pos_budget)
+    """Budget auto-derivation: explicit value wins; the CPU backend gets the
+    named CPU budget; a GPU maps to a fraction of its allocator limit; an
+    accelerator without a limit is an error, never a silent default."""
+    from colbwt_tpu.utils.hbm import (CPU_POS_BUDGET, _RESERVE_FRACTION,
+                                      device_memory_bytes, resolve_pos_budget)
 
     assert resolve_pos_budget(5 << 30) == 5 << 30
-    # under the test conftest we are on CPU: unknown -> fallback
-    assert device_hbm_bytes() is None
-    assert resolve_pos_budget(0) == _FALLBACK
+    # under the test conftest we are on CPU: no device memory to discover
+    assert device_memory_bytes() is None
+    assert resolve_pos_budget(0) == CPU_POS_BUDGET
 
-    class FakeTpu:
-        device_kind = "TPU v5 lite"
-        platform = "tpu"
+    class FakeGpu:
+        device_kind = "NVIDIA H100 80GB HBM3"
+        platform = "gpu"
 
+        def memory_stats(self):
+            return {"bytes_limit": 60 << 30, "bytes_in_use": 0}
+
+    assert device_memory_bytes(FakeGpu()) == 60 << 30
+    assert resolve_pos_budget(0, FakeGpu()) == int((60 << 30)
+                                                   * _RESERVE_FRACTION)
+    # an explicit budget never consults the device
+    assert resolve_pos_budget(7, FakeGpu()) == 7
+
+    class FakeNoStats(FakeGpu):
         def memory_stats(self):
             return None
 
-    assert device_hbm_bytes(FakeTpu()) == 16 << 30
-    assert resolve_pos_budget(0, FakeTpu()) == int((16 << 30)
-                                                   * _RESERVE_FRACTION)
-
-    class FakeStats(FakeTpu):
-        def memory_stats(self):
-            return {"bytes_limit": 12 << 30}
-
-    assert device_hbm_bytes(FakeStats()) == 12 << 30
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        device_memory_bytes(FakeNoStats())
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        resolve_pos_budget(0, FakeNoStats())
 
 
 def test_packed_planes_guard_wide_cids(rng):
